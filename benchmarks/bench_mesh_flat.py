@@ -24,7 +24,7 @@ def main():
     import jax
     import numpy as np
 
-    from bjxa_tpu.cli import _enable_compile_cache
+    from bjxa_tpu.utils.compile_cache import enable_compile_cache
     from bjxa_tpu.ops.decode import words_from_blocks_host
     from bjxa_tpu.parallel.mesh import make_mesh
     from bjxa_tpu.parallel.sharded import (
@@ -32,7 +32,7 @@ def main():
         decode_corpus_sharded_words,
     )
 
-    _enable_compile_cache()
+    enable_compile_cache()
     bits = 8
     B = int(os.environ.get("BENCH_BLOCKS", "20672"))
     n_files = int(os.environ.get("BENCH_FILES", "16"))

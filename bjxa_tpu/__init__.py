@@ -1,4 +1,4 @@
-"""bjxa-tpu: a TPU-native BandJAM XA audio codec engine.
+"""bjxa-tpu: a BandJAM XA audio codec engine on JAX accelerators.
 
 Brand-new JAX/XLA/Pallas implementation with the full capabilities of the
 reference C library+CLI (libbjxa/bjxa): bit-exact 4/6/8-bit mono/stereo XA

@@ -13,7 +13,7 @@ block-at-a-time contract (``src/libbjxa.c:602-661, 759-819``):
 * using a codec before header/init raises the EINVAL-equivalent.
 
 The per-block work runs through the exact numpy path (the filter state is
-two ints per channel; dispatching a TPU program per 32-sample block would
+two ints per channel; dispatching a device program per 32-sample block would
 be all launch latency) — the device pipelines in :mod:`bjxa_tpu.ops` are
 the whole-file/corpus fast path, exactly like the reference's
 ``BJXA_SINGLE_PASS`` dual-mode CLI proves both modes equivalent.

@@ -1,7 +1,7 @@
-"""Typed error taxonomy for the TPU-native BandJAM XA engine.
+"""Typed error taxonomy for the BandJAM XA engine.
 
 The reference C library reports failures through ``errno`` with a documented
-taxonomy (reference: ``bjxa.3.rst.in:205-276``).  The TPU engine mirrors that
+taxonomy (reference: ``bjxa.3.rst.in:205-276``).  This engine mirrors that
 contract as a small exception hierarchy; every exception carries the matching
 ``errno`` value so differential tests can compare against the C binary and
 callers can dispatch on either the type or the errno code.

@@ -1,7 +1,7 @@
 """Host-side container/format layer: XA and RIFF/WAVE headers, PCM bytes.
 
 Headers are tiny (32/44 bytes of metadata) so they are parsed and emitted on
-the host with numpy; the TPU compute path only ever sees dense sample blocks.
+the host with numpy; the device compute path only ever sees dense sample blocks.
 """
 
 from bjxa_tpu.format.xa import (

@@ -1,6 +1,6 @@
 // bjxa-tpu native host runtime.
 //
-// The TPU owns bulk/corpus work; this library owns the *streaming* hot path
+// The device owns bulk/corpus work; this library owns the *streaming* hot path
 // on the host CPU: block-at-a-time decode/encode where a device round trip
 // per 32-sample block would be pure launch latency.  The codec primitives
 // live in xa_core.h (shared with the drop-in C ABI in bjxa_abi.cc); this

@@ -122,8 +122,9 @@ inline bool filter_block(const int32_t ranged_src[kBlockSamples],
 // against `x[kBlockSamples]`, starting from taps (*p0, *p1).  Writes the
 // chosen profile byte and the coded "top-bits" values, and advances the
 // taps to the end state of the winning candidate.  The host twin of the
-// device kernel in bjxa_tpu/ops/encode.py (same ranking contract: f32
-// error accumulation, first-best tie break).
+// device kernels in bjxa_tpu/ops/encode.py and ops/pallas_encode.py
+// (same ranking contract: f32 sums of exactly rounded integer squares,
+// first-best tie break).
 inline void search_block(const int32_t x[kBlockSamples], int bits,
                          int32_t* p0, int32_t* p1, uint8_t* profile,
                          int32_t coded_out[kBlockSamples]) {
@@ -154,8 +155,11 @@ inline void search_block(const int32_t x[kBlockSamples], int bits,
         q = std::min(std::max(q, qmin), qmax);
         const int32_t d = q << shq;
         const int32_t recon = clamp16((d >> range) + pred);
-        const float e = static_cast<float>(x[n] - recon);
-        err += e * e;
+        // exact square (|e| <= 65535 fits uint32), rounded once: the
+        // value of an unfused float multiply, whatever the compiler
+        // contracts
+        const uint32_t e = static_cast<uint32_t>(x[n] - recon);
+        err += static_cast<float>(e * e);
         b = a;
         a = recon;
         coded[n] = d;

@@ -1,6 +1,6 @@
 """Vectorized XA bit-pack ("deflate") on device.
 
-Inverse of :mod:`bjxa_tpu.ops.inflate`; TPU equivalent of the reference's
+Inverse of :mod:`bjxa_tpu.ops.inflate`; device equivalent of the reference's
 pack callbacks (``src/libbjxa.c:349-391``).  Keeps the top ``bits`` bits of
 each 16-bit sample value and packs them densely.
 """

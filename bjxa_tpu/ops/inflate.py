@@ -1,6 +1,6 @@
 """Vectorized XA bit-unpack ("inflate") on device.
 
-TPU-native equivalent of the reference's per-block unpack callbacks
+Device equivalent of the reference's per-block unpack callbacks
 (``src/libbjxa.c:286-345``): instead of one 32-sample block at a time through
 a function pointer, whole ``[..., blocks, block_size]`` arrays are unpacked
 with a handful of fused elementwise integer ops — embarrassingly parallel,

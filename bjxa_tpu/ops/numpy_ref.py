@@ -2,7 +2,7 @@
 
 This is the jit-free "debug/sanitizer" path (SURVEY §5): bit-exact, obvious
 code, no compilation — used by the block-streaming codec objects where jit
-dispatch per 32-sample block would dominate, and as the oracle the JAX/TPU
+dispatch per 32-sample block would dominate, and as the oracle the JAX device
 pipelines are differentially tested against.
 
 Semantics follow the format spec (``bjxa.5.rst``): packed samples occupy the

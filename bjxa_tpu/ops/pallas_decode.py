@@ -1,23 +1,20 @@
-"""Fully fused Pallas decode kernel: raw XA bytes -> filtered PCM.
+"""Fused XA decode kernel for the GPU: packed payload words -> filtered PCM.
 
-One kernel performs everything the reference does per block
-(``src/libbjxa.c:629-646``): profile decode, gain-table lookup, 4/6/8-bit
-unpack (``:286-345``), range shift, and the two-tap prediction filter with
-int16 saturation (``:533-578``) — bit-exact with every other path.
+One Pallas kernel, compiled through Triton, performs everything the
+reference does per block (``src/libbjxa.c:629-646``): profile decode,
+gain-table lookup, 4/6/8-bit unpack (``:286-345``), range shift, and the
+two-tap prediction filter with int16 saturation (``:533-578``) — bit-exact
+with every other path.
 
-Relative to the two-stage pipeline (XLA unpack -> Pallas filter) this
-removes the unpacked-sample array entirely: HBM traffic drops to ~1 byte
-read + 2 bytes written per sample inside the kernel.  Input arrives as a
-lane-minor transpose of the raw blocks (``uint8[B, S, L]``) — transposing
-bytes is the cheapest possible layout pass.
-
-Layout: lanes split over the two minor dims ``(sublanes, L/sublanes)``;
-``sublanes=32`` matches uint8's native (32, 128) vreg tiling and is ~2.5x
-faster than the 16-way split on v5e (:func:`pick_tiles` chooses).  The
-block-size dimension S (17/25/33, odd by design) sits on a non-tiled axis.
-The gain table is a 5-way select chain per block, amortized over its 32
-samples.  The predictor state lives in VMEM scratch across the sequential
-block grid.
+Layout: lanes are independent channel streams and sit in the minor
+dimension, so one thread owns one lane and a warp's loads are coalesced.
+The payload arrives as little-endian int32 words (``words int32[B, bits,
+L]``, 4 consecutive payload bytes of one lane per word) beside the profile
+plane (``prof uint8[B, L]``).  The grid runs over lane tiles only; each
+program walks the whole block range with an in-kernel loop and keeps the
+predictor state in registers, so nothing is carried between programs and
+neither blocks nor lanes need padding (the ragged lane tail is masked).
+Each block costs ``1 + 4*bits`` bytes in and 64 bytes out per lane.
 """
 
 from __future__ import annotations
@@ -26,8 +23,9 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from bjxa_tpu.ops.tables import (
     BLOCK_SAMPLES,
@@ -37,39 +35,22 @@ from bjxa_tpu.ops.tables import (
     INT16_MIN,
 )
 
-SUBLANES = 16
+#: Programs wanted in flight before a wider lane tile is worth it: two per
+#: SM of an H100 (132 SMs).
+MIN_PROGRAMS = 264
 
 
-def pick_tiles(L: int, B: int):
-    """Choose (sublanes, lane_tile, block_tile) for a lane count.
-
-    uint8's native vreg tiling is (32, 128), so a 32-way sublane split with
-    ``lane_tile >= 4096`` loads payload bytes at full native tiles — measured
-    ~2.5x faster on v5e than the (16, ·) half-native split.  Small lane
-    counts fall back to the (16, 128) split to avoid padding waste; tiny
-    batches stay under one tile.  block_tile keeps the double-buffered VMEM
-    working set a few MB (~16 MB budget).
-    """
-    if L >= 8192:
-        return 32, 8192, min(B, 4)
-    if L >= 4096:
-        return 32, 4096, min(B, 8)
-    if L >= 2048 or B < 8192:
-        return 16, 2048, min(B, 8)
-    # Few lanes but a LONG block range (e.g. one mono 20k-block file fed
-    # straight to the batch kernel): padding the lane dim to a full 2048
-    # tile would multiply the padded program's memory by lane_tile/L —
-    # measured to blow HBM at compile for a 1-lane 20736-block file.
-    # Shrink the tile toward the lane count instead; the vreg fill drops
-    # but tiny-lane shapes are bound by everything except the VPU.
-    lt = 256
-    while lt < L:
-        lt *= 2
-    return 16, lt, min(B, 8)
+def pick_lane_tile(L: int) -> int:
+    """Lanes per program: the widest of 128/64/32 that still launches
+    :data:`MIN_PROGRAMS` programs, else 32 (one warp)."""
+    for lt in (128, 64):
+        if -(-L // lt) >= MIN_PROGRAMS:
+            return lt
+    return 32
 
 
-def _sel_gain(factor, table):
-    """5-way select chain: table[clamp(factor)] over a [16, LN] i32 tile."""
+def sel_gain(factor, table):
+    """``table[min(factor, 4)]`` as a 5-way select chain (no gather)."""
     out = jnp.full_like(factor, int(table[4]))
     for f in range(3, -1, -1):
         out = jnp.where(factor <= f, int(table[f]), out)
@@ -80,455 +61,126 @@ def _sign16(v):
     return ((v & 0xFFFF) ^ 0x8000) - 0x8000
 
 
-def _decode_kernel(blocks_ref, state_ref, out_ref, end_ref, st_ref, *,
-                   bits: int, block_tile: int, with_output: bool):
-    b = pl.program_id(1)
-    num_b = pl.num_programs(1)
+def _unpack(words, bits: int):
+    """The 32 top-bits samples of one block from its ``bits`` payload
+    words (int32 vectors over the lane tile), sign-extended int32."""
 
-    @pl.when(b == 0)
-    def _():
-        st_ref[...] = state_ref[...]
+    def byte(i):
+        # payload byte i == byte (i % 4) of little-endian word (i // 4)
+        q = i & 3
+        w = words[i >> 2]
+        return (w >> (8 * q)) & 0xFF if q else w & 0xFF
 
-    p0 = st_ref[0]
-    p1 = st_ref[1]
-    for j in range(block_tile):
-        prof = blocks_ref[j, 0].astype(jnp.int32)
-        factor = prof >> 4
+    out = []
+    w24 = None
+    for n in range(BLOCK_SAMPLES):
+        if bits == 8:
+            v = byte(n) << 8
+        elif bits == 4:
+            bb = byte(n // 2)
+            v = (bb & 0xF0) << 8 if n % 2 == 0 else (bb & 0x0F) << 12
+        else:  # 6
+            q6 = n % 4
+            if q6 == 0:
+                base = 3 * (n // 4)
+                w24 = (byte(base) << 16) | (byte(base + 1) << 8) | byte(
+                    base + 2
+                )
+            v = [
+                (w24 & 0x00FC0000) >> 8,
+                (w24 & 0x0003F000) >> 2,
+                (w24 & 0x00000FC0) << 4,
+                (w24 & 0x0000003F) << 10,
+            ][q6]
+        out.append(_sign16(v))
+    return out
+
+
+def _decode_kernel(prof_ref, words_ref, state_ref, *out_refs, bits: int,
+                   lane_tile: int, with_output: bool):
+    out_ref, end_ref = out_refs if with_output else (None, out_refs[0])
+    nblocks, L = prof_ref.shape
+    start = pl.program_id(0) * lane_tile
+    lanes = pl.ds(start, lane_tile)
+    mask = start + lax.broadcasted_iota(jnp.int32, (lane_tile,), 0) < L
+
+    def load(ref):
+        return plgpu.load(ref, mask=mask, other=0)
+
+    def block(b, carry):
+        p0, p1 = carry
+        prof = load(prof_ref.at[b, lanes]).astype(jnp.int32)
         shift = prof & 0x0F
-        k0 = _sel_gain(factor, GAIN_K0)
-        k1 = _sel_gain(factor, GAIN_K1)
-
-        def byte(i):
-            return blocks_ref[j, 1 + i].astype(jnp.int32)
-
-        w = None
-        for n in range(BLOCK_SAMPLES):
-            # unpack sample n into the top bits of an int16 (sign-extended)
-            if bits == 8:
-                v = byte(n) << 8
-            elif bits == 4:
-                bb = byte(n // 2)
-                v = (bb & 0xF0) << 8 if n % 2 == 0 else (bb & 0x0F) << 12
-            else:  # 6
-                q = n % 4
-                if q == 0:
-                    base = 3 * (n // 4)
-                    w = (byte(base) << 16) | (byte(base + 1) << 8) | byte(
-                        base + 2
-                    )
-                v = [
-                    (w & 0x00FC0000) >> 8,
-                    (w & 0x0003F000) >> 2,
-                    (w & 0x00000FC0) << 4,
-                    (w & 0x0000003F) << 10,
-                ][q]
-            ranged = _sign16(v) >> shift
+        k0 = sel_gain(prof >> 4, GAIN_K0)
+        k1 = sel_gain(prof >> 4, GAIN_K1)
+        words = [load(words_ref.at[b, w, lanes]) for w in range(bits)]
+        for n, v in enumerate(_unpack(words, bits)):
             g = p0 * k0 + p1 * k1
-            s = ranged + ((g + ((g >> 31) & 255)) >> 8)
+            s = (v >> shift) + ((g + ((g >> 31) & 255)) >> 8)
             s = jnp.clip(s, INT16_MIN, INT16_MAX)
             if with_output:
-                out_ref[j, n] = s.astype(jnp.int16)
+                plgpu.store(
+                    out_ref.at[b, n, lanes], s.astype(jnp.int16), mask=mask
+                )
             p1 = p0
             p0 = s
-    st_ref[0] = p0
-    st_ref[1] = p1
+        return p0, p1
 
-    @pl.when(b == num_b - 1)
-    def _():
-        end_ref[...] = st_ref[...]
-
-
-def _states_kernel(blocks_ref, state_ref, end_ref, st_ref, *, bits,
-                   block_tile):
-    _decode_kernel(
-        blocks_ref, state_ref, None, end_ref, st_ref,
-        bits=bits, block_tile=block_tile, with_output=False,
+    p0, p1 = lax.fori_loop(
+        0, nblocks, block,
+        (load(state_ref.at[0, lanes]), load(state_ref.at[1, lanes])),
     )
-
-
-def _decode_words_kernel(prof_ref, words_ref, state_ref, out_ref, end_ref,
-                         st_ref, *, bits: int, block_tile: int,
-                         with_output: bool, pack_out: bool = False):
-    """Packed-words twin of :func:`_decode_kernel`.
-
-    The payload arrives as little-endian int32 words (4 consecutive payload
-    bytes of the SAME stream per word), so each int32 tile load covers 4
-    samples and the per-sample uint8->int32 convert disappears — samples are
-    extracted with shift+mask on int32 vregs.  Measured 188 vs 117 Gsamp/s
-    (8-bit, v5e) against the uint8-per-sample load.  Semantics are identical
-    to the reference inflate+filter (``src/libbjxa.c:286-345,533-578``).
-
-    ``pack_out``: store PCM as little-endian int32 words holding two
-    consecutive samples of the lane (``out int32[.., 16, sub, ln]``) —
-    halves the store count at +2 pack ops per pair; the int32 word's byte
-    image equals the two int16 samples in stream order, so hosts recover
-    samples with a ``view('<i2')`` + pair-axis transpose.
-    """
-    b = pl.program_id(1)
-    num_b = pl.num_programs(1)
-
-    @pl.when(b == 0)
-    def _():
-        st_ref[...] = state_ref[...]
-
-    p0 = st_ref[0]
-    p1 = st_ref[1]
-    for j in range(block_tile):
-        prof = prof_ref[j, 0].astype(jnp.int32)
-        factor = prof >> 4
-        shift = prof & 0x0F
-        k0 = _sel_gain(factor, GAIN_K0)
-        k1 = _sel_gain(factor, GAIN_K1)
-
-        words = [words_ref[j, wi] for wi in range(bits)]
-        bytecache: dict = {}
-
-        def byte(i):
-            # payload byte i == byte (i % 4) of little-endian word (i // 4)
-            if i not in bytecache:
-                q = i & 3
-                w = words[i >> 2]
-                bytecache[i] = (w >> (8 * q)) & 0xFF if q else w & 0xFF
-            return bytecache[i]
-
-        w24 = None
-        even_s = None
-        for n in range(BLOCK_SAMPLES):
-            if bits == 8:
-                v = byte(n) << 8
-            elif bits == 4:
-                bb = byte(n // 2)
-                v = (bb & 0xF0) << 8 if n % 2 == 0 else (bb & 0x0F) << 12
-            else:  # 6
-                q6 = n % 4
-                if q6 == 0:
-                    base = 3 * (n // 4)
-                    w24 = (byte(base) << 16) | (byte(base + 1) << 8) | byte(
-                        base + 2
-                    )
-                v = [
-                    (w24 & 0x00FC0000) >> 8,
-                    (w24 & 0x0003F000) >> 2,
-                    (w24 & 0x00000FC0) << 4,
-                    (w24 & 0x0000003F) << 10,
-                ][q6]
-            ranged = _sign16(v) >> shift
-            g = p0 * k0 + p1 * k1
-            s = ranged + ((g + ((g >> 31) & 255)) >> 8)
-            s = jnp.clip(s, INT16_MIN, INT16_MAX)
-            if with_output:
-                if pack_out:
-                    if n % 2 == 0:
-                        even_s = s
-                    else:
-                        out_ref[j, n // 2] = (even_s & 0xFFFF) | (s << 16)
-                else:
-                    out_ref[j, n] = s.astype(jnp.int16)
-            p1 = p0
-            p0 = s
-    st_ref[0] = p0
-    st_ref[1] = p1
-
-    @pl.when(b == num_b - 1)
-    def _():
-        end_ref[...] = st_ref[...]
-
-
-def _words_states_kernel(prof_ref, words_ref, state_ref, end_ref, st_ref, *,
-                         bits, block_tile):
-    _decode_words_kernel(
-        prof_ref, words_ref, state_ref, None, end_ref, st_ref,
-        bits=bits, block_tile=block_tile, with_output=False,
-    )
+    plgpu.store(end_ref.at[0, lanes], p0, mask=mask)
+    plgpu.store(end_ref.at[1, lanes], p1, mask=mask)
 
 
 @partial(
     jax.jit,
-    static_argnames=("bits", "lane_tile", "block_tile", "with_output",
-                     "interpret", "sublanes", "pack_out"),
+    static_argnames=("bits", "with_output", "interpret", "lane_tile"),
 )
-def fused_decode_words(
+def decode_words(
     prof: jnp.ndarray,
     words: jnp.ndarray,
     state: jnp.ndarray,
     *,
     bits: int,
-    lane_tile: int = 2048,
-    block_tile: int = 8,
     with_output: bool = True,
     interpret: bool = False,
-    sublanes: int = SUBLANES,
-    pack_out: bool = False,
+    lane_tile: int | None = None,
 ):
     """Decode packed-words lane-major blocks with the fused kernel.
 
     Args:
       prof:  ``uint8[B, L]`` — profile byte per block per lane.
-      words: ``int32[B, W, L]`` — payload as little-endian int32 words,
-        ``W = bits`` (word w packs payload bytes ``4w..4w+3``).
-      state: ``int32[L, 2]``.
+      words: ``int32[B, bits, L]`` — payload as little-endian int32 words
+        (word w packs payload bytes ``4w..4w+3``).
+      state: ``int32[L, 2]`` — (prev0, prev1) entry state per lane.
+      with_output: False computes only the end state (the propagation
+        passes of the chunk fixed point); no PCM is written.
+      lane_tile: lanes per program; default :func:`pick_lane_tile`.
 
-    L must divide by ``lane_tile`` and B by ``block_tile`` (use
-    :func:`fused_decode_words_padded` otherwise).
-
-    Returns ``(pcm int16[B, 32, sublanes, L/sublanes] | None,
-    end_state int32[L, 2])``.  The PCM is returned in the kernel's native
-    4-D lane split — merging ``(sublanes, L/sublanes) -> L`` on device is a
-    tiled-layout copy of the whole output (measured ~2x the kernel cost);
-    hosts recover lanes for free with ``np.reshape(B, 32, -1)`` after
-    transfer.  Bit-exact with every other decode path.
+    Returns ``(pcm int16[B, 32, L] | None, end int32[L, 2])``.  Profile
+    validity is not checked here: callers derive it from ``prof``.
     """
     B, W, L = words.shape
     assert W == bits, (W, bits)
     assert prof.shape == (B, L), (prof.shape, B, L)
-    assert L % lane_tile == 0 and B % block_tile == 0, (L, B)
-    ln = lane_tile // sublanes
-    LN = L // sublanes
-
-    p4 = prof.reshape(B, 1, sublanes, LN)
-    w4 = words.reshape(B, W, sublanes, LN)
-    st4 = state.transpose(1, 0).reshape(2, sublanes, LN)
-
-    in_specs = [
-        pl.BlockSpec((block_tile, 1, sublanes, ln), lambda l, b: (b, 0, 0, l)),
-        pl.BlockSpec((block_tile, W, sublanes, ln), lambda l, b: (b, 0, 0, l)),
-        pl.BlockSpec((2, sublanes, ln), lambda l, b: (0, 0, l)),
-    ]
-    end_spec = pl.BlockSpec((2, sublanes, ln), lambda l, b: (0, 0, l))
-    end_shape = jax.ShapeDtypeStruct((2, sublanes, LN), jnp.int32)
-    params = dict(
-        grid=(L // lane_tile, B // block_tile),
-        in_specs=in_specs,
-        scratch_shapes=[pltpu.VMEM((2, sublanes, ln), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-        interpret=interpret,
+    lt = pick_lane_tile(L) if lane_tile is None else lane_tile
+    end_shape = jax.ShapeDtypeStruct((2, L), jnp.int32)
+    out_shape = (
+        [jax.ShapeDtypeStruct((B, BLOCK_SAMPLES, L), jnp.int16), end_shape]
+        if with_output
+        else [end_shape]
     )
-
-    if with_output:
-        ns = BLOCK_SAMPLES // 2 if pack_out else BLOCK_SAMPLES
-        out_dt = jnp.int32 if pack_out else jnp.int16
-        out, end = pl.pallas_call(
-            partial(_decode_words_kernel, bits=bits, block_tile=block_tile,
-                    with_output=True, pack_out=pack_out),
-            out_specs=[
-                pl.BlockSpec(
-                    (block_tile, ns, sublanes, ln),
-                    lambda l, b: (b, 0, 0, l),
-                ),
-                end_spec,
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((B, ns, sublanes, LN), out_dt),
-                end_shape,
-            ],
-            **params,
-        )(p4, w4, st4)
-        pcm = out
-    else:
-        end = pl.pallas_call(
-            partial(_words_states_kernel, bits=bits, block_tile=block_tile),
-            out_specs=end_spec,
-            out_shape=end_shape,
-            **params,
-        )(p4, w4, st4)
-        pcm = None
-
-    return pcm, end.reshape(2, L).transpose(1, 0)
-
-
-def fused_decode_words_padded(
-    prof: jnp.ndarray,
-    words: jnp.ndarray,
-    state: jnp.ndarray,
-    *,
-    bits: int,
-    with_output: bool = True,
-    interpret: bool = False,
-    lane_tile: int | None = None,
-    block_tile: int | None = None,
-    sublanes: int | None = None,
-):
-    """Padding wrapper around :func:`fused_decode_words`.
-
-    Pads lanes and blocks with zeros (profile 0 = valid dummy), recovers the
-    true end state from the last real block when trailing blocks were
-    padded, and trims ``end`` to the real lane count.  The PCM output keeps
-    the kernel-native PADDED 4-D shape ``int16[Bp, 32, sublanes, Lp/sub]``
-    — device-side trimming would reintroduce the full-output relayout copy;
-    hosts trim for free after transfer with
-    ``np.reshape(Bp, 32, -1)[:B, :, :L]``.
-    """
-    B, W, L = words.shape
-    auto_sub, auto_lt, auto_bt = pick_tiles(L, B)
-    sublanes = auto_sub if sublanes is None else sublanes
-    lane_tile = auto_lt if lane_tile is None else lane_tile
-    block_tile = auto_bt if block_tile is None else block_tile
-    pad_l = (-L) % lane_tile
-    pad_b = (-B) % block_tile
-    p, w, st = prof, words, state
-    if pad_l or pad_b:
-        p = jnp.pad(prof, ((0, pad_b), (0, pad_l)))
-        w = jnp.pad(words, ((0, pad_b), (0, 0), (0, pad_l)))
-        st = jnp.pad(state, ((0, pad_l), (0, 0)))
-    pcm, end = fused_decode_words(
-        p,
-        w,
-        st,
-        bits=bits,
-        lane_tile=lane_tile,
-        block_tile=block_tile,
-        sublanes=sublanes,
-        with_output=with_output or pad_b > 0,
+    outs = pl.pallas_call(
+        partial(_decode_kernel, bits=bits, lane_tile=lt,
+                with_output=with_output),
+        out_shape=out_shape,
+        grid=(pl.cdiv(L, lt),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=lt // 32),
         interpret=interpret,
-    )
-    end = end[:L]
-    if pcm is not None and pad_b:
-        # true end state lives after the last REAL block (row B-1)
-        end = jnp.stack(
-            [pcm[B - 1, -1].reshape(-1), pcm[B - 1, -2].reshape(-1)],
-            axis=-1,
-        ).astype(jnp.int32)[:L]
-    if not with_output:
-        pcm = None
-    return pcm, end
-
-
-@partial(
-    jax.jit,
-    static_argnames=("bits", "lane_tile", "block_tile", "with_output",
-                     "interpret", "sublanes"),
-)
-def fused_decode_lanes(
-    blocks_t: jnp.ndarray,
-    state: jnp.ndarray,
-    *,
-    bits: int,
-    lane_tile: int = 2048,
-    block_tile: int = 8,
-    with_output: bool = True,
-    interpret: bool = False,
-    sublanes: int = SUBLANES,
-):
-    """Decode lane-transposed raw blocks with the fused kernel.
-
-    Args:
-      blocks_t: ``uint8[B, S, L]`` — raw XA channel blocks, lane-minor
-        (``S = 4*bits + 1``, profile byte first).
-      state:    ``int32[L, 2]``.
-
-    L must divide by ``lane_tile`` and B by ``block_tile`` (use
-    :func:`fused_decode_padded` otherwise).
-
-    Returns ``(pcm int16[B, 32, L] | None, end_state int32[L, 2])`` —
-    bit-exact with the scan pipeline; profile validity is NOT checked here
-    (hosts derive it from the profile bytes separately).
-    """
-    B, S, L = blocks_t.shape
-    assert S == 4 * bits + 1, (S, bits)
-    assert L % lane_tile == 0 and B % block_tile == 0, (L, B)
-    ln = lane_tile // sublanes
-    LN = L // sublanes
-
-    b4 = blocks_t.reshape(B, S, sublanes, LN)
-    st4 = state.transpose(1, 0).reshape(2, sublanes, LN)
-
-    in_specs = [
-        pl.BlockSpec((block_tile, S, sublanes, ln), lambda l, b: (b, 0, 0, l)),
-        pl.BlockSpec((2, sublanes, ln), lambda l, b: (0, 0, l)),
-    ]
-    end_spec = pl.BlockSpec((2, sublanes, ln), lambda l, b: (0, 0, l))
-    end_shape = jax.ShapeDtypeStruct((2, sublanes, LN), jnp.int32)
-    params = dict(
-        grid=(L // lane_tile, B // block_tile),
-        in_specs=in_specs,
-        scratch_shapes=[pltpu.VMEM((2, sublanes, ln), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-        interpret=interpret,
-    )
-
-    if with_output:
-        out, end = pl.pallas_call(
-            partial(_decode_kernel, bits=bits, block_tile=block_tile,
-                    with_output=True),
-            out_specs=[
-                pl.BlockSpec(
-                    (block_tile, BLOCK_SAMPLES, sublanes, ln),
-                    lambda l, b: (b, 0, 0, l),
-                ),
-                end_spec,
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct(
-                    (B, BLOCK_SAMPLES, sublanes, LN), jnp.int16
-                ),
-                end_shape,
-            ],
-            **params,
-        )(b4, st4)
-        pcm = out.reshape(B, BLOCK_SAMPLES, L)
-    else:
-        end = pl.pallas_call(
-            partial(_states_kernel, bits=bits, block_tile=block_tile),
-            out_specs=end_spec,
-            out_shape=end_shape,
-            **params,
-        )(b4, st4)
-        pcm = None
-
-    return pcm, end.reshape(2, L).transpose(1, 0)
-
-
-def fused_decode_padded(
-    blocks_t: jnp.ndarray,
-    state: jnp.ndarray,
-    *,
-    bits: int,
-    with_output: bool = True,
-    interpret: bool = False,
-    lane_tile: int | None = None,
-    block_tile: int | None = None,
-    sublanes: int | None = None,
-):
-    """Padding wrapper around :func:`fused_decode_lanes`.
-
-    Pads lanes with zeros and blocks with profile-0/zero dummies, trims
-    the result, and recovers the true end state from the last real samples
-    when trailing blocks were padded.  Tile parameters default to
-    :func:`pick_tiles` for the given lane count.
-    """
-    B, S, L = blocks_t.shape
-    auto_sub, auto_lt, auto_bt = pick_tiles(L, B)
-    sublanes = auto_sub if sublanes is None else sublanes
-    lane_tile = auto_lt if lane_tile is None else lane_tile
-    block_tile = auto_bt if block_tile is None else block_tile
-    pad_l = (-L) % lane_tile
-    pad_b = (-B) % block_tile
-    bt = blocks_t
-    st = state
-    if pad_l or pad_b:
-        bt = jnp.pad(blocks_t, ((0, pad_b), (0, 0), (0, pad_l)))
-        st = jnp.pad(state, ((0, pad_l), (0, 0)))
-    pcm, end = fused_decode_lanes(
-        bt,
-        st,
-        bits=bits,
-        lane_tile=lane_tile,
-        block_tile=block_tile,
-        sublanes=sublanes,
-        with_output=with_output or pad_b > 0,
-        interpret=interpret,
-    )
-    end = end[:L]
-    if pcm is not None:
-        pcm = pcm[:B, :, :L]
-        if pad_b:
-            end = jnp.stack(
-                [pcm[B - 1, -1, :], pcm[B - 1, -2, :]], axis=-1
-            ).astype(jnp.int32)
-    if not with_output:
-        pcm = None
-    return pcm, end
+        name="bjxa_decode_words",
+    )(prof, words, state.astype(jnp.int32).T)
+    end = outs[-1].T
+    return (outs[0] if with_output else None), end

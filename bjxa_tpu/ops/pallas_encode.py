@@ -1,19 +1,25 @@
-"""Pallas TPU kernel for the exhaustive profile-search encoder.
+"""Exhaustive profile-search encode kernel for the GPU (Pallas through
+Triton).
 
-The device-scan encoder (:func:`bjxa_tpu.ops.encode.encode_search`)
-evaluates 80 candidate profiles per block with ~12 ops per candidate per
-sample — three orders of magnitude more compute per sample than decode —
-and the XLA scan formulation leaves most of the VPU idle.  This kernel
-runs the whole search as straight-line/fori code over VMEM lane tiles:
+The search (:func:`bjxa_tpu.ops.encode.encode_search_scan` is its XLA
+twin) evaluates 80 candidate profiles per block, ~12 integer ops per
+candidate per sample, with the block order sequential because the chosen
+candidate's reconstruction feeds the next block's prediction.  Here one
+program owns a tile of lanes and walks the whole block range in an
+in-kernel loop, the predictor state in registers.  Within a block the 16
+ranges of one factor run side by side as a ``[16, lanes]`` tile, so the
+lanes x ranges tile gives each thread its own candidate chains; the
+factors and the 32 samples are loops, which keeps the kernel small
+enough for Triton to compile in seconds.
 
-* factors iterate as a compile-time loop (their gain pairs become
-  immediate operands); ranges iterate as a ``fori_loop`` whose scalar
-  index drives the quantization shifts;
-* candidate evaluation order (factor*16 + range, strictly-less argmin) and
-  float32 error accumulation order match the scan encoder and the native
-  C++ encoder exactly, so all three pick identical profiles;
-* the chosen candidate is re-run once to materialize coded values, the
-  exact decoder reconstruction, and the carried state.
+Ranking contract, shared with the scan encoder and the native C++
+encoder: candidates ordered ``factor*16 + range``, float32 error sums
+``err + e*e`` with the square formed exactly in integers (``|e| <=
+65535``, so ``e*e`` fits uint32) and rounded once to float32 — the same
+value an unfused float multiply gives, and immune to multiply-add
+contraction — and a strictly-less comparison, so the first best wins.
+The winner is re-run once per block to emit coded values, the exact
+decoder reconstruction and the carried state.
 
 Semantics anchored to the format spec (reference ``bjxa.5.rst:110-129``);
 the reference encoder itself performs no search (``src/libbjxa.c:679``).
@@ -27,8 +33,9 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
+from bjxa_tpu.ops.pallas_decode import sel_gain
 from bjxa_tpu.ops.tables import (
     BLOCK_SAMPLES,
     GAIN_K0,
@@ -39,267 +46,150 @@ from bjxa_tpu.ops.tables import (
     NUM_RANGES,
 )
 
-SUBLANES = 8  # int32-dominant kernel
+#: Lanes per program and warps per program: a [16 ranges, 8 lanes] tile
+#: on one warp, 4 candidates per thread — the fastest of the tiles swept
+#: on the H100 (``PERF.md``, PR 1).
+LANE_TILE = 8
+NUM_WARPS = 1
 
 
-def _sel(factor, table):
-    out = jnp.full_like(factor, int(table[NUM_FACTORS - 1]))
-    for f in range(NUM_FACTORS - 2, -1, -1):
-        out = jnp.where(factor <= f, int(table[f]), out)
-    return out
+def square_f32(e):
+    """``float32(e*e)`` for int32 ``|e| <= 65535``: the exact square as
+    uint32, rounded once — equal to an unfused float32 multiply."""
+    sq = lax.bitcast_convert_type(e * e, jnp.uint32)
+    return sq.astype(jnp.float32)
+
+
+def _trunc_div_256(g):
+    return (g + ((g >> 31) & 255)) >> 8
 
 
 def _encode_kernel(pcm_ref, state_ref, prof_ref, coded_ref, recon_ref,
-                   end_ref, st_ref, *, bits: int, block_tile: int,
-                   specialize: bool = False, gut_search: bool = False):
-    b = pl.program_id(1)
-    num_b = pl.num_programs(1)
+                   end_ref, *, bits: int, lane_tile: int):
+    nblocks, _, L = pcm_ref.shape
     shq = 16 - bits
     qmin = -(1 << (bits - 1))
     qmax = (1 << (bits - 1)) - 1
+    start = pl.program_id(0) * lane_tile
+    lanes = pl.ds(start, lane_tile)
+    mask = start + lax.broadcasted_iota(jnp.int32, (lane_tile,), 0) < L
 
-    @pl.when(b == 0)
-    def _():
-        st_ref[...] = state_ref[...]
+    def load(ref):
+        return plgpu.load(ref, mask=mask, other=0)
 
-    p0 = st_ref[0]
-    p1 = st_ref[1]
-    for j in range(block_tile):
-        x = [pcm_ref[j, n].astype(jnp.int32) for n in range(BLOCK_SAMPLES)]
-        best_err = jnp.full(p0.shape, jnp.inf, jnp.float32)
-        best_prof = jnp.zeros(p0.shape, jnp.int32)
+    def store(ref, val):
+        plgpu.store(ref, val, mask=mask)
 
-        for factor in ([] if gut_search else range(NUM_FACTORS)):
-            # gut_search: ablation mode — skip every candidate, leaving
-            # only loads, the final profile-0 re-run, and stores; bounds
-            # the kernel's non-search overhead (benchmarks/bench_encode.py)
-            k0 = int(GAIN_K0[factor])
-            k1 = int(GAIN_K1[factor])
+    # per-range quantisation constants of the [16, lanes] candidate tile
+    rr = lax.broadcasted_iota(jnp.int32, (NUM_RANGES, lane_tile), 0)
+    sh_down = jnp.maximum(shq - rr, 0)
+    sh_up = jnp.maximum(rr - shq, 0)
+    bias = (jnp.ones_like(rr) << sh_down) >> 1
+    use_down = rr <= shq
 
-            def eval_static(r, berr, bprof, k0=k0, k1=k1, factor=factor):
-                """Range-specialized candidate: r is a compile-time int,
-                so quantization shifts are immediates, the down/up select
-                disappears, and ``(q << shq) >> r`` folds to one shift
-                (exact: the down case loses no bits in the left shift,
-                the up case is a pure power-of-two floor either way)."""
-                sh_down = max(shq - r, 0)
-                sh_up = max(r - shq, 0)
-                bias = (1 << sh_down) >> 1
-                a0, a1 = p0, p1
-                err = jnp.zeros(p0.shape, jnp.float32)
-                for n in range(BLOCK_SAMPLES):
-                    g = a0 * k0 + a1 * k1
-                    pred = (g + ((g >> 31) & 255)) >> 8
-                    diff = x[n] - pred
-                    if r <= shq:
-                        q = (diff + bias) >> sh_down if bias else diff
-                        q = jnp.clip(q, qmin, qmax)
-                        recon = (q << sh_down) + pred
-                    else:
-                        q = jnp.clip(diff << sh_up, qmin, qmax)
-                        recon = (q >> sh_up) + pred
-                    recon = jnp.clip(recon, INT16_MIN, INT16_MAX)
-                    e = (x[n] - recon).astype(jnp.float32)
-                    err = err + e * e
-                    a1 = a0
-                    a0 = recon
-                prof = (factor << 4) | r
-                better = err < berr
-                return (
-                    jnp.where(better, err, berr),
-                    jnp.where(better, prof, bprof),
-                )
+    def quantise(diff, sd, su, bs, down):
+        q = jnp.where(down, (diff + bs) >> sd, diff << su)
+        return jnp.clip(q, qmin, qmax) << shq
 
-            def range_body(r, carry, k0=k0, k1=k1, factor=factor):
-                berr, bprof = carry
-                sh_down = jnp.maximum(shq - r, 0)
-                sh_up = jnp.maximum(r - shq, 0)
-                bias = (jnp.int32(1) << sh_down) >> 1
-                use_down = r <= shq
-                a0, a1 = p0, p1
-                err = jnp.zeros(p0.shape, jnp.float32)
-                for n in range(BLOCK_SAMPLES):
-                    g = a0 * k0 + a1 * k1
-                    pred = (g + ((g >> 31) & 255)) >> 8
-                    diff = x[n] - pred
-                    q = jnp.where(
-                        use_down, (diff + bias) >> sh_down, diff << sh_up
-                    )
-                    q = jnp.clip(q, qmin, qmax)
-                    recon = jnp.clip(
-                        ((q << shq) >> r) + pred, INT16_MIN, INT16_MAX
-                    )
-                    e = (x[n] - recon).astype(jnp.float32)
-                    err = err + e * e
-                    a1 = a0
-                    a0 = recon
-                prof = (factor << 4) | r
-                better = err < berr
-                return (
-                    jnp.where(better, err, berr),
-                    jnp.where(better, prof, bprof),
-                )
+    def block(b, carry):
+        p0, p1 = carry  # [lanes]
 
-            if specialize:
-                for r in range(NUM_RANGES):
-                    best_err, best_prof = eval_static(
-                        r, best_err, best_prof
-                    )
-            else:
-                best_err, best_prof = lax.fori_loop(
-                    0, NUM_RANGES, range_body, (best_err, best_prof)
-                )
+        def factor(f, best):
+            """All 16 ranges of factor ``f``; keep the first best."""
+            best_err, best_prof = best
+            # gains as tiles: a select over scalars does not lower
+            fv = jnp.full(rr.shape, f, jnp.int32)
+            k0 = sel_gain(fv, GAIN_K0)
+            k1 = sel_gain(fv, GAIN_K1)
 
-        # re-run the winning candidate per lane to emit coded values,
-        # reconstruction and carried state (vector shifts this time)
-        factor_l = best_prof >> 4
+            def sample(n, c):
+                a0, a1, err = c
+                x = load(pcm_ref.at[b, n, lanes])[None, :]
+                pred = _trunc_div_256(a0 * k0 + a1 * k1)
+                d = quantise(x - pred, sh_down, sh_up, bias, use_down)
+                recon = jnp.clip((d >> rr) + pred, INT16_MIN, INT16_MAX)
+                return recon, a0, err + square_f32(x - recon)
+
+            _a0, _a1, err = lax.fori_loop(0, BLOCK_SAMPLES, sample, (
+                jnp.broadcast_to(p0[None, :], rr.shape),
+                jnp.broadcast_to(p1[None, :], rr.shape),
+                jnp.zeros(rr.shape, jnp.float32),
+            ))
+            # first (lowest-range) minimum of this factor, then a strict
+            # comparison against the earlier factors' best
+            m = jnp.min(err, axis=0)
+            r_best = jnp.min(jnp.where(err == m[None, :], rr, NUM_RANGES),
+                             axis=0)
+            better = m < best_err
+            return (jnp.where(better, m, best_err),
+                    jnp.where(better, (f << 4) | r_best, best_prof))
+
+        _err, best_prof = lax.fori_loop(0, NUM_FACTORS, factor, (
+            jnp.full((lane_tile,), jnp.inf, jnp.float32),
+            jnp.zeros((lane_tile,), jnp.int32),
+        ))
+
+        # re-run the winning candidate per lane
         r_l = best_prof & 0x0F
-        k0 = _sel(factor_l, GAIN_K0)
-        k1 = _sel(factor_l, GAIN_K1)
-        sh_down = jnp.maximum(shq - r_l, 0)
-        sh_up = jnp.maximum(r_l - shq, 0)
-        bias = (jnp.int32(1) << sh_down) >> 1
-        use_down = r_l <= shq
-        for n in range(BLOCK_SAMPLES):
-            g = p0 * k0 + p1 * k1
-            pred = (g + ((g >> 31) & 255)) >> 8
-            diff = x[n] - pred
-            q = jnp.where(use_down, (diff + bias) >> sh_down, diff << sh_up)
-            q = jnp.clip(q, qmin, qmax)
-            d = q << shq
+        k0 = sel_gain(best_prof >> 4, GAIN_K0)
+        k1 = sel_gain(best_prof >> 4, GAIN_K1)
+        sd = jnp.maximum(shq - r_l, 0)
+        su = jnp.maximum(r_l - shq, 0)
+        bs = (jnp.ones_like(r_l) << sd) >> 1
+        down = r_l <= shq
+
+        def emit(n, c):
+            q0, q1 = c
+            x = load(pcm_ref.at[b, n, lanes])
+            pred = _trunc_div_256(q0 * k0 + q1 * k1)
+            d = quantise(x - pred, sd, su, bs, down)
             recon = jnp.clip((d >> r_l) + pred, INT16_MIN, INT16_MAX)
-            coded_ref[j, n] = d.astype(jnp.int16)
-            recon_ref[j, n] = recon.astype(jnp.int16)
-            p1 = p0
-            p0 = recon
-        prof_ref[j] = best_prof
-    st_ref[0] = p0
-    st_ref[1] = p1
+            store(coded_ref.at[b, n, lanes], d.astype(jnp.int16))
+            store(recon_ref.at[b, n, lanes], recon.astype(jnp.int16))
+            return recon, q0
 
-    @pl.when(b == num_b - 1)
-    def _():
-        end_ref[...] = st_ref[...]
+        p0, p1 = lax.fori_loop(0, BLOCK_SAMPLES, emit, (p0, p1))
+        store(prof_ref.at[b, lanes], best_prof)
+        return p0, p1
+
+    p0, p1 = lax.fori_loop(
+        0, nblocks, block,
+        (load(state_ref.at[0, lanes]), load(state_ref.at[1, lanes])),
+    )
+    store(end_ref.at[0, lanes], p0)
+    store(end_ref.at[1, lanes], p1)
 
 
-@partial(
-    jax.jit,
-    static_argnames=("bits", "lane_tile", "block_tile", "interpret",
-                     "specialize", "gut_search"),
-)
-def encode_search_pallas_core(
+@partial(jax.jit, static_argnames=("bits", "interpret", "lane_tile"))
+def encode_search_triton(
     pcm: jnp.ndarray,
     state: jnp.ndarray,
     *,
     bits: int,
-    lane_tile: int = 1024,
-    block_tile: int = 4,
     interpret: bool = False,
-    specialize: bool = False,
-    gut_search: bool = False,
+    lane_tile: int = LANE_TILE,
 ):
-    """Exhaustive-search encode of ``int16/int32[B, 32, L]`` target PCM.
+    """Exhaustive-search encode of int-like ``[B, 32, L]`` target PCM.
 
-    L must divide by ``lane_tile``, B by ``block_tile``.  Returns
+    Any B and L (the ragged lane tail is masked).  Returns
     ``(profiles int32[B, L], coded int16[B, 32, L], recon int16[B, 32, L],
     end_state int32[L, 2])`` — identical selections to the scan encoder.
     """
     B, ns, L = pcm.shape
     assert ns == BLOCK_SAMPLES
-    assert L % lane_tile == 0 and B % block_tile == 0, (L, B)
-    ln = lane_tile // SUBLANES
-    LN = L // SUBLANES
-
-    p4 = pcm.astype(jnp.int16).reshape(B, BLOCK_SAMPLES, SUBLANES, LN)
-    st4 = state.transpose(1, 0).reshape(2, SUBLANES, LN)
-
-    lane_spec = pl.BlockSpec((2, SUBLANES, ln), lambda l, b: (0, 0, l))
-    samp_spec = pl.BlockSpec(
-        (block_tile, BLOCK_SAMPLES, SUBLANES, ln), lambda l, b: (b, 0, 0, l)
-    )
+    samp = jax.ShapeDtypeStruct((B, BLOCK_SAMPLES, L), jnp.int16)
     profs, coded, recon, end = pl.pallas_call(
-        partial(_encode_kernel, bits=bits, block_tile=block_tile,
-                specialize=specialize, gut_search=gut_search),
-        grid=(L // lane_tile, B // block_tile),
-        in_specs=[samp_spec, lane_spec],
-        out_specs=[
-            pl.BlockSpec(
-                (block_tile, SUBLANES, ln), lambda l, b: (b, 0, l)
-            ),
-            samp_spec,
-            samp_spec,
-            lane_spec,
-        ],
+        partial(_encode_kernel, bits=bits, lane_tile=lane_tile),
         out_shape=[
-            jax.ShapeDtypeStruct((B, SUBLANES, LN), jnp.int32),
-            jax.ShapeDtypeStruct((B, BLOCK_SAMPLES, SUBLANES, LN), jnp.int16),
-            jax.ShapeDtypeStruct((B, BLOCK_SAMPLES, SUBLANES, LN), jnp.int16),
-            jax.ShapeDtypeStruct((2, SUBLANES, LN), jnp.int32),
+            jax.ShapeDtypeStruct((B, L), jnp.int32),
+            samp,
+            samp,
+            jax.ShapeDtypeStruct((2, L), jnp.int32),
         ],
-        scratch_shapes=[pltpu.VMEM((2, SUBLANES, ln), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
+        grid=(pl.cdiv(L, lane_tile),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
         interpret=interpret,
-    )(p4, st4)
-
-    return (
-        profs.reshape(B, L),
-        coded.reshape(B, BLOCK_SAMPLES, L),
-        recon.reshape(B, BLOCK_SAMPLES, L),
-        end.reshape(2, L).transpose(1, 0),
-    )
-
-
-def pick_tiles(L: int, B: int):
-    """Choose (lane_tile, block_tile) for a lane count.
-
-    Wide lane tiles keep the 80-candidate serial sweep fed with enough
-    independent vregs per step (measured on v5e: 8192-lane tiles run the
-    search ~5x faster than 1024-lane tiles); small lane counts use
-    narrower tiles to avoid padding waste.
-    """
-    if L >= 8192:
-        return 8192, min(B, 2)
-    if L >= 4096:
-        return 4096, min(B, 2)
-    if L >= 2048:
-        return 2048, min(B, 4)
-    return 1024, min(B, 4)
-
-
-def encode_search_pallas(pcm, state, *, bits: int, interpret: bool = False,
-                         specialize: bool | None = None):
-    """Padding wrapper: accepts any ``[B, 32, L]``; pads lanes with zeros
-    and blocks with zero blocks, trims outputs, recovers the end state
-    from the last real reconstruction.
-
-    ``specialize`` defaults to True on compiled backends (the range-
-    unrolled kernel picks identical profiles and runs ~10-14% faster at
-    the VPU issue ceiling, ``benchmarks/bench_encode_ablate.py``) and
-    False under ``interpret`` (the unrolled graph is pathologically slow
-    to trace in interpret mode; the fori variant is the debug twin).
-    """
-    B, ns, L = pcm.shape
-    lane_tile, block_tile = pick_tiles(L, B)
-    if specialize is None:
-        specialize = not interpret
-    pad_l = (-L) % lane_tile
-    pad_b = (-B) % block_tile
-    p = pcm
-    st = state
-    if pad_l or pad_b:
-        p = jnp.pad(pcm, ((0, pad_b), (0, 0), (0, pad_l)))
-        st = jnp.pad(state, ((0, pad_l), (0, 0)))
-    profs, coded, recon, end = encode_search_pallas_core(
-        p, st, bits=bits, lane_tile=lane_tile, block_tile=block_tile,
-        interpret=interpret, specialize=specialize,
-    )
-    profs = profs[:B, :L]
-    coded = coded[:B, :, :L]
-    recon = recon[:B, :, :L]
-    end = end[:L]
-    if pad_b:
-        end = jnp.stack(
-            [recon[B - 1, -1, :], recon[B - 1, -2, :]], axis=-1
-        ).astype(jnp.int32)
-    return profs, coded, recon, end
+        name="bjxa_encode_search",
+    )(pcm.astype(jnp.int32), state.astype(jnp.int32).T)
+    return profs, coded, recon, end.T

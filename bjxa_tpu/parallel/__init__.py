@@ -1,7 +1,7 @@
 """Multi-device / multi-host scaling layer.
 
 The reference is single-threaded by design (``bjxa.3.rst.in:278-283``); this
-package is where the TPU build diverges: corpora shard over a device mesh
+package is where the device build diverges: corpora shard over a device mesh
 (data parallel over files), and a single huge stream shards its block range
 over devices with only the two-int16-per-channel predictor state crossing
 shard boundaries (sequence parallel), exchanged with ``lax.ppermute`` and

@@ -8,16 +8,15 @@ cooperating processes:
 
 * :func:`initialize` — wires ``jax.distributed`` from CLI flags or
   ``BJXA_COORDINATOR``/``BJXA_NUM_PROCESSES``/``BJXA_PROCESS_ID`` env vars
-  (each optional; TPU pods auto-detect when all are omitted but
-  ``--num-processes`` is requested via env).  On CPU backends it selects
-  gloo collectives so multi-process runs work on plain hosts — this is how
-  the multi-process tests spawn a real 2-process job with a local
-  coordinator.
+  (each optional).  On CPU backends it selects gloo collectives so
+  multi-process runs work on plain hosts — this is how the multi-process
+  tests spawn a real 2-process job with a local coordinator; on GPU hosts
+  it gives every process cards of its own (:func:`gpu_local_device_ids`).
 * :func:`process_info` — the (index, count) every sharding decision keys
   on, derived from the live JAX runtime (never passed by hand once
   initialized).
 * :func:`allreduce_counters` — cross-host reduction of the corpus
-  throughput counters (an ``all_gather`` of five int64s over DCN; identity
+  throughput counters (an ``all_gather`` of five int64s; identity
   when single-process).
 
 File I/O stays host-local: each process globs its own filesystem and takes
@@ -77,21 +76,68 @@ def initialize(
     if _dist.global_state.client is not None:  # already wired
         return True
 
-    # CPU backends need an explicit cross-process collectives layer; the
-    # TPU runtime brings its own.  Deciding off the *configured* platform
-    # (not an instantiated backend) keeps this callable before any device
-    # use, which jax.distributed.initialize requires anyway.
+    # CPU backends need an explicit cross-process collectives layer; GPU
+    # processes need their own cards.  Deciding off the *configured*
+    # platform (not an instantiated backend) keeps this callable before
+    # any device use, which jax.distributed.initialize requires anyway.
     platforms = jax.config.jax_platforms or ""
+    local_device_ids = None
     if "cpu" in platforms.split(","):
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
+    else:
+        local_device_ids = gpu_local_device_ids(
+            coordinator, num_processes, process_id, visible_gpus()
+        )
 
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )
     _enable_rank_cache_writes()
     return True
+
+
+def visible_gpus() -> int:
+    """GPUs this process may open, counted without starting a backend:
+    ``CUDA_VISIBLE_DEVICES`` when set, else the ``/dev/nvidiaN`` nodes."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return len([d for d in env.split(",") if d.strip()])
+    import glob
+
+    return len(glob.glob("/dev/nvidia[0-9]*"))
+
+
+def gpu_local_device_ids(
+    coordinator: str | None,
+    num_processes: int | None,
+    process_id: int | None,
+    n_gpus: int,
+) -> list[int] | None:
+    """The cards process ``process_id`` owns on its host.
+
+    A JAX process reserves most of every card it opens, so processes that
+    share a host must not share cards.  With a ``localhost`` coordinator
+    all processes are on this host and split its cards evenly (more
+    processes than cards is an error); on a multi-host job each host runs
+    one process per card, so process ``i`` owns card ``i % n_gpus``.
+    """
+    if num_processes is None or process_id is None:
+        return None
+    if n_gpus < 1:
+        raise ValueError("no GPU visible to this process")
+    host = (coordinator or "").rsplit(":", 1)[0]
+    if host in ("localhost", "127.0.0.1", "[::1]", ""):
+        if num_processes > n_gpus:
+            raise ValueError(
+                f"{num_processes} processes on one host with {n_gpus} "
+                "GPUs: each process needs a card of its own"
+            )
+        per = n_gpus // num_processes
+        return list(range(process_id * per, (process_id + 1) * per))
+    return [process_id % n_gpus]
 
 
 def _enable_rank_cache_writes() -> None:

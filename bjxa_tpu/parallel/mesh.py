@@ -3,7 +3,7 @@
 Axis conventions:
 
 * ``dp`` — data parallel over independent files (each file carries its own
-  decoder state, so no communication at all; the TPU analog of the
+  decoder state, so no communication at all; the device analog of the
   reference's decoder-per-file model, ``bjxa.3.rst.in:119-120``).
 * ``sp`` — sequence parallel over the block range of one stream; shards
   exchange the 2-scalars-per-channel predictor state with ``ppermute``.

@@ -3,7 +3,7 @@
 One step = decode a sharded batch of XA streams, run the exhaustive
 profile-search re-encoder over the decoded PCM, and reduce a global
 quality metric — the codec-engine analog of a "training step", exercising
-every hot kernel (inflate, filter scan, 80-candidate search, deflate)
+every hot kernel (fused decode, 80-candidate search, deflate)
 under one jit over a device mesh.
 
 Sharding layout: files over ``dp``, channels over ``cp`` (stereo filters
@@ -21,11 +21,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from bjxa_tpu.ops.decode import lanes_decoder
 from bjxa_tpu.ops.deflate import deflate_blocks
 from bjxa_tpu.ops.encode import encode_search
-from bjxa_tpu.ops.filter import decode_lanes
-from bjxa_tpu.ops.inflate import inflate_blocks
-from bjxa_tpu.ops.tables import BLOCK_SAMPLES
 
 
 @partial(jax.jit, static_argnames=("bits",))
@@ -40,10 +38,10 @@ def transcode_step(blocks: jnp.ndarray, states: jnp.ndarray, *, bits: int):
     Returns ``(xa uint8[N, B, C, block_size], mse float32)``.
     """
     N, C, B, S = blocks.shape
-    profiles, samples = inflate_blocks(blocks, bits)
-    prof_l = profiles.transpose(2, 0, 1).reshape(B, N * C)
-    samp_l = samples.transpose(2, 3, 0, 1).reshape(B, BLOCK_SAMPLES, N * C)
-    pcm, _end, _valid = decode_lanes(prof_l, samp_l, states.reshape(N * C, 2))
+    blocks_t = blocks.transpose(2, 3, 0, 1).reshape(B, S, N * C)
+    pcm, _end = lanes_decoder(blocks_t, bits)(
+        states.reshape(N * C, 2).astype(jnp.int32), True
+    )
 
     enc_prof, coded, recon, _ = encode_search(
         pcm.astype(jnp.int32), jnp.zeros((N * C, 2), jnp.int32), bits=bits

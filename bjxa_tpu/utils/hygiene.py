@@ -10,7 +10,7 @@ virtual mappings until ``mmap`` starts failing against the kernel's
 (de)serializer is a hard SIGSEGV, not a Python error.  Measured on the
 round-5 suite: the map count climbed past 64k of the default 65530
 ceiling and the run segfaulted inside ``compilation_cache.
-get_executable_and_time`` (see PERFORMANCE.md "Slow tier").
+get_executable_and_time``.
 
 :func:`clear_compiled_caches` releases all three layers.  Safe at any
 quiescent point — everything recompiles (or reloads from the persistent
@@ -19,7 +19,7 @@ harness calls it between modules; services converting heterogeneous
 corpora should call it periodically.
 
 The reference C library has no analog only because it compiles nothing
-at runtime; this is the TPU-native counterpart of its "no global state"
+at runtime; this is the device-side counterpart of its "no global state"
 rule (``/root/reference/src/libbjxa.c`` keeps all state in the decoder
 object): compiled code is the one global this engine holds, and this is
 the lever that drops it.

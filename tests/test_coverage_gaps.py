@@ -146,12 +146,45 @@ class TestCliCorpusArgs:
 
 class TestCliEnvKnobs:
     def test_compile_cache_disabled(self, monkeypatch):
-        monkeypatch.setenv("BJXA_COMPILE_CACHE", "0")
-        cli._enable_compile_cache()  # covers the early-return arm
+        """JAX_COMPILATION_CACHE_DIR set: the code sets no directory of
+        its own; unset: the fixed in-checkout directory, which git
+        ignores."""
+        import jax
+
+        from bjxa_tpu.utils import compile_cache
+
+        calls = {}
+        monkeypatch.setattr(
+            jax.config, "update", lambda k, v: calls.__setitem__(k, v)
+        )
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere")
+        assert compile_cache.enable_compile_cache() == "/elsewhere"
+        assert "jax_compilation_cache_dir" not in calls
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        where = compile_cache.enable_compile_cache()
+        repo = pathlib.Path(compile_cache.__file__).resolve().parents[2]
+        assert where == str(repo / ".jax_cache")
+        assert calls["jax_compilation_cache_dir"] == where
+        assert ".jax_cache/" in (repo / ".gitignore").read_text().split()
 
     def test_platform_override(self, monkeypatch):
+        """BJXA_PLATFORM reaches jax.config; a failed update is not
+        swallowed."""
+        import jax
+
+        seen = []
+        monkeypatch.setattr(jax.config, "update",
+                            lambda k, v: seen.append((k, v)))
         monkeypatch.setenv("BJXA_PLATFORM", "cpu")
         cli._select_platform()
+        assert seen == [("jax_platforms", "cpu")]
+
+        def refuse(k, v):
+            raise RuntimeError("backend already initialised")
+
+        monkeypatch.setattr(jax.config, "update", refuse)
+        with pytest.raises(RuntimeError):
+            cli._select_platform()
 
 
 # ---------------------------------------------------------------------------
@@ -279,32 +312,39 @@ class TestSerialWriter:
 
 class TestPureHelpers:
     def test_decode_pick_tiles_arms(self):
-        from bjxa_tpu.ops.pallas_decode import pick_tiles
+        """Widest lane tile that still launches MIN_PROGRAMS programs."""
+        from bjxa_tpu.ops.pallas_decode import MIN_PROGRAMS, pick_lane_tile
 
-        assert pick_tiles(8192, 64) == (32, 8192, 4)
-        assert pick_tiles(4096, 64) == (32, 4096, 8)
-        assert pick_tiles(128, 64) == (16, 2048, 8)
+        assert pick_lane_tile(32768) == 64  # 512 programs, not 256
+        assert pick_lane_tile(128 * MIN_PROGRAMS) == 128
+        assert pick_lane_tile(128 * (MIN_PROGRAMS - 1)) == 64
+        assert pick_lane_tile(64 * (MIN_PROGRAMS - 1)) == 32
+        assert pick_lane_tile(8192) == 32
+        assert pick_lane_tile(1) == 32
 
     def test_encode_pick_tiles_arms(self):
-        from bjxa_tpu.ops.pallas_encode import pick_tiles
+        """The encode kernel's fixed [16 ranges, 8 lanes] tile and its
+        launch grid: one program per 8 lanes, ragged tail masked."""
+        from bjxa_tpu.ops import pallas_encode
 
-        assert pick_tiles(8192, 8) == (8192, 2)
-        assert pick_tiles(4096, 8) == (4096, 2)
-        assert pick_tiles(2048, 8) == (2048, 4)
-        assert pick_tiles(64, 8) == (1024, 4)
+        assert pallas_encode.LANE_TILE == 8
+        assert pallas_encode.NUM_WARPS * 32 * 4 == (
+            16 * pallas_encode.LANE_TILE
+        )  # 4 candidates per thread
 
     def test_trim_padded_lanes(self):
+        """The GPU kernels return flat, unpadded [B, 32, L] PCM for any
+        lane count: nothing is left for hosts to trim (interpret mode)."""
         import jax.numpy as jnp
 
-        from bjxa_tpu.ops.decode import trim_padded_lanes
+        from bjxa_tpu.ops.pallas_decode import decode_words
 
-        flat = jnp.zeros((4, 32, 8), jnp.int16)
-        assert trim_padded_lanes(flat, 4, 8) is flat  # non-4D passthrough
-        snug = jnp.zeros((4, 32, 2, 4), jnp.int16)
-        assert trim_padded_lanes(snug, 4, 8) is snug  # within waste budget
-        padded = jnp.zeros((8, 32, 16, 128), jnp.int16)
-        out = trim_padded_lanes(padded, 4, 8)
-        assert out.shape == (4, 32, 8)
+        for L in (1, 33, 70):
+            prof = jnp.zeros((3, L), jnp.uint8)
+            words = jnp.zeros((3, 4, L), jnp.int32)
+            pcm, end = decode_words(prof, words, jnp.zeros((L, 2), jnp.int32),
+                                    bits=4, interpret=True)
+            assert pcm.shape == (3, 32, L) and end.shape == (L, 2)
 
     def test_mesh_defaults(self):
         import jax
@@ -317,12 +357,18 @@ class TestPureHelpers:
         assert sh.spec[0] == "dp"
 
     def test_filter_env_overrides(self, monkeypatch):
-        from bjxa_tpu.ops.filter import _fused_default, _pallas_default
+        """One route per platform, no environment override, and an
+        unknown platform is an error rather than a silent fallback."""
+        import jax
 
-        monkeypatch.setenv("BJXA_PALLAS", "0")
-        monkeypatch.setenv("BJXA_FUSED", "1")
-        assert _pallas_default() is False
-        assert _fused_default() is True
+        from bjxa_tpu.ops.filter import kernel_route
+
+        assert kernel_route() == "xla"
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        assert kernel_route() == "triton"
+        monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+        with pytest.raises(RuntimeError, match="no kernel route"):
+            kernel_route()
 
     def test_decode_lanes_int32_samples(self):
         import jax.numpy as jnp
@@ -332,9 +378,7 @@ class TestPureHelpers:
         profiles = jnp.zeros((2, 1), jnp.int32)
         samples = jnp.ones((2, 32, 1), jnp.int32) << 8
         state = jnp.zeros((1, 2), jnp.int32)
-        pcm, end, valid = decode_lanes(
-            profiles, samples, state, use_pallas=False
-        )
+        pcm, end, valid = decode_lanes(profiles, samples, state)
         assert pcm.dtype == jnp.int16 and bool(valid.all())
 
 

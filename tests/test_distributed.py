@@ -289,3 +289,45 @@ def test_allreduce_identity_single_process():
     assert distributed.allreduce_sum([3, 4]) == [3, 4]
     c = Counters(files=2, samples=100)
     assert distributed.allreduce_counters(c) is c
+
+
+@pytest.mark.parametrize(
+    "coordinator, n_proc, pid, gpus, want",
+    [
+        ("localhost:1234", 4, 2, 4, [2]),  # one card each
+        ("127.0.0.1:1234", 2, 1, 4, [2, 3]),  # cards split evenly
+        ("node7:1234", 16, 9, 8, [1]),  # multi-host: one per card
+        (None, None, None, 4, None),  # single process: JAX decides
+    ],
+)
+def test_gpu_local_device_ids(coordinator, n_proc, pid, gpus, want):
+    assert distributed.gpu_local_device_ids(
+        coordinator, n_proc, pid, gpus
+    ) == want
+
+
+def test_gpu_local_device_ids_refuses_oversubscription():
+    with pytest.raises(ValueError, match="card of its own"):
+        distributed.gpu_local_device_ids("localhost:1", 5, 0, 4)
+    with pytest.raises(ValueError, match="no GPU"):
+        distributed.gpu_local_device_ids("localhost:1", 1, 0, 0)
+
+
+def test_initialize_passes_local_devices_on_gpu(monkeypatch):
+    """On a GPU platform initialize() hands jax.distributed the process's
+    own cards; on the CPU it asks for gloo and names no cards."""
+    import jax
+
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: seen.update(kw))
+    monkeypatch.setattr(distributed, "_enable_rank_cache_writes",
+                        lambda: None)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0,1,2,3")
+    import types
+
+    monkeypatch.setattr(jax, "config", types.SimpleNamespace(
+        jax_platforms="cuda", update=None))
+    assert distributed.initialize("localhost:9", 2, 1) is True
+    assert seen["local_device_ids"] == [2, 3]
+    assert distributed.visible_gpus() == 4

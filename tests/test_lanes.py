@@ -1,8 +1,8 @@
 """Lane-major decode paths vs the established pipelines (CPU, bit-exact).
 
 The lane-major layout (``uint8[B, S, L]`` raw blocks, lanes minor) is the
-TPU fast path: hosts stage it for free and the fused kernel reads it at
-native tiling.  These tests pin every lane-major component to the
+device fast path: hosts stage it for free and the fused kernel reads one
+lane per thread.  These tests pin every lane-major component to the
 already-golden channel-major pipelines.
 """
 
@@ -166,45 +166,38 @@ def test_chunk_lanes_staging_matches_blocks_from_bytes():
     np.testing.assert_array_equal(back, blocks)
 
 
-@pytest.mark.slow
-def test_fixpoint_lanes_core_xla_equals_fused_interpret():
-    """The fused=False (XLA) and fused=True (Pallas, interpret) cores of
-    fixpoint_lanes_core agree bit-for-bit, including at sublanes=32."""
-    from bjxa_tpu.ops.pallas_decode import fused_decode_lanes
+@pytest.mark.parametrize("bits", [4, 8])
+def test_fixpoint_lanes_core_xla_equals_fused_interpret(bits, monkeypatch,
+                                                        request):
+    """fixpoint_lanes_core gives the same frames, end state, validity and
+    iteration count on the xla route and on the triton route (kernel in
+    interpret mode)."""
+    from bjxa_tpu.ops.decode import fixpoint_lanes_core
 
     rng = np.random.default_rng(15)
-    bits, B, L = 8, 8, 64
+    K, C, Bc = 4, 2, 6
     size = bits * 4 + 1
-    blocks_t = rng.integers(0, 256, size=(B, size, L), dtype=np.uint8)
-    factor = rng.integers(0, 5, size=(B, L))
-    shift = rng.integers(0, 13, size=(B, L))
+    blocks_t = rng.integers(0, 256, size=(Bc, size, K * C), dtype=np.uint8)
+    factor = rng.integers(0, 5, size=(Bc, K * C))
+    shift = rng.integers(0, 13, size=(Bc, K * C))
     blocks_t[:, 0, :] = (factor << 4 | shift).astype(np.uint8)
-    state = rng.integers(-3000, 3000, size=(L, 2)).astype(np.int32)
+    state = rng.integers(-3000, 3000, size=(C, 2)).astype(np.int32)
 
-    pcm32, end32 = fused_decode_lanes(
-        jnp.asarray(blocks_t),
-        jnp.asarray(state),
-        bits=bits,
-        lane_tile=64,
-        block_tile=4,
-        sublanes=32,
-        interpret=True,
-    )
-    from bjxa_tpu.ops.filter import decode_lanes
-    from bjxa_tpu.ops.inflate import inflate_lanes
+    def run():
+        return [np.asarray(x) for x in fixpoint_lanes_core(
+            jnp.asarray(blocks_t), jnp.asarray(state), K, C, K * Bc - 3,
+            bits=bits,
+        )]
 
-    profiles, samples = inflate_lanes(jnp.asarray(blocks_t), bits)
-    pcm_ref, end_ref, _ = decode_lanes(
-        profiles, samples, jnp.asarray(state), use_pallas=False
-    )
-    np.testing.assert_array_equal(np.asarray(pcm32), np.asarray(pcm_ref))
-    np.testing.assert_array_equal(np.asarray(end32), np.asarray(end_ref))
+    ref = run()
+    request.getfixturevalue("triton_interpret")
+    for got, want in zip(run(), ref):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_fixpoint_and_packed_tiny():
     """Tiny direct drives of decode_arrays_fixpoint and the packed
-    single-buffer batch path (on the real chip these trace the fused
-    kernel branches; on CPU the scan fallbacks) against decode_arrays."""
+    single-buffer batch path against decode_arrays."""
     import numpy as np
 
     from bjxa_tpu.ops.decode import (

@@ -1,10 +1,8 @@
 """Small-shape smoke tests that drive every device-dispatch entry point.
 
-On the default CPU-mesh run these exercise the scan/XLA branches; run
-with ``BJXA_TEST_TPU=1`` against the real chip they trace the fused
-Pallas branches (`_fused_default()`/`_pallas_default()` true) — the
-TPU leg of the coverage measurement (tools/coverage_run.py --append).
-Shapes are tiny so remote TPU compiles stay cheap.
+On the CPU run these take the ``xla`` kernel route; the same entry points
+take the ``triton`` route on the GPU (``chip_smoke.py`` drives them there
+at full size).  Shapes are tiny so compiles stay cheap.
 """
 
 import numpy as np
@@ -102,7 +100,8 @@ def test_decode_bytes_smoke(bits):
 
 
 def test_encode_search_smoke():
-    """encode_search dispatch (pallas on TPU, scan elsewhere) round-trips."""
+    """encode_search dispatch (kernel on the GPU, scan on the CPU)
+    round-trips."""
     import jax.numpy as jnp
 
     from bjxa_tpu.ops.decode import decode_batch_lanes

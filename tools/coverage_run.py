@@ -13,8 +13,7 @@ Usage:
     # e.g. python tools/coverage_run.py -q --slow tests/
 
 ``--append`` merges into an existing ``coverage.json`` instead of
-replacing it — used to combine the CPU-mesh suite with a TPU-backend
-pass (``BJXA_TEST_TPU=1``) that exercises the device-dispatch branches.
+replacing it — used to combine several partial passes.
 Subprocess workers (the multi-process distributed tests) report their
 hits through ``BJXA_COV_DIR``, which this runner exports and merges.
 

@@ -15,7 +15,7 @@ state, until no state changes.  Like decode, chunks 0..r are exactly
 right after r rounds (induction from the anchor), so the fixed point IS
 the sequential encode; the question is the TYPICAL round count.
 
-Result (v5e-independent; run on the CPU backend): see the table printed —
+Result (run on the CPU backend): see the table printed —
 convergence is decode-like (a handful of rounds, not K) across signal
 regimes and bit depths, and the fixed point is byte-identical to the
 sequential encode.  The lead is therefore implementable; what remains is
