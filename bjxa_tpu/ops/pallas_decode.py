@@ -136,7 +136,7 @@ def _decode_kernel(prof_ref, words_ref, state_ref, *out_refs, bits: int,
 
 @partial(
     jax.jit,
-    static_argnames=("bits", "with_output", "interpret", "lane_tile"),
+    static_argnames=("bits", "with_output", "interpret"),
 )
 def decode_words(
     prof: jnp.ndarray,
@@ -146,7 +146,6 @@ def decode_words(
     bits: int,
     with_output: bool = True,
     interpret: bool = False,
-    lane_tile: int | None = None,
 ):
     """Decode packed-words lane-major blocks with the fused kernel.
 
@@ -157,7 +156,6 @@ def decode_words(
       state: ``int32[L, 2]`` — (prev0, prev1) entry state per lane.
       with_output: False computes only the end state (the propagation
         passes of the chunk fixed point); no PCM is written.
-      lane_tile: lanes per program; default :func:`pick_lane_tile`.
 
     Returns ``(pcm int16[B, 32, L] | None, end int32[L, 2])``.  Profile
     validity is not checked here: callers derive it from ``prof``.
@@ -165,7 +163,7 @@ def decode_words(
     B, W, L = words.shape
     assert W == bits, (W, bits)
     assert prof.shape == (B, L), (prof.shape, B, L)
-    lt = pick_lane_tile(L) if lane_tile is None else lane_tile
+    lt = pick_lane_tile(L)
     end_shape = jax.ShapeDtypeStruct((2, L), jnp.int32)
     out_shape = (
         [jax.ShapeDtypeStruct((B, BLOCK_SAMPLES, L), jnp.int16), end_shape]

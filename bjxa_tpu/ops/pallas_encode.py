@@ -65,14 +65,14 @@ def _trunc_div_256(g):
 
 
 def _encode_kernel(pcm_ref, state_ref, prof_ref, coded_ref, recon_ref,
-                   end_ref, *, bits: int, lane_tile: int):
+                   end_ref, *, bits: int):
     nblocks, _, L = pcm_ref.shape
     shq = 16 - bits
     qmin = -(1 << (bits - 1))
     qmax = (1 << (bits - 1)) - 1
-    start = pl.program_id(0) * lane_tile
-    lanes = pl.ds(start, lane_tile)
-    mask = start + lax.broadcasted_iota(jnp.int32, (lane_tile,), 0) < L
+    start = pl.program_id(0) * LANE_TILE
+    lanes = pl.ds(start, LANE_TILE)
+    mask = start + lax.broadcasted_iota(jnp.int32, (LANE_TILE,), 0) < L
 
     def load(ref):
         return plgpu.load(ref, mask=mask, other=0)
@@ -81,7 +81,7 @@ def _encode_kernel(pcm_ref, state_ref, prof_ref, coded_ref, recon_ref,
         plgpu.store(ref, val, mask=mask)
 
     # per-range quantisation constants of the [16, lanes] candidate tile
-    rr = lax.broadcasted_iota(jnp.int32, (NUM_RANGES, lane_tile), 0)
+    rr = lax.broadcasted_iota(jnp.int32, (NUM_RANGES, LANE_TILE), 0)
     sh_down = jnp.maximum(shq - rr, 0)
     sh_up = jnp.maximum(rr - shq, 0)
     bias = (jnp.ones_like(rr) << sh_down) >> 1
@@ -125,8 +125,8 @@ def _encode_kernel(pcm_ref, state_ref, prof_ref, coded_ref, recon_ref,
                     jnp.where(better, (f << 4) | r_best, best_prof))
 
         _err, best_prof = lax.fori_loop(0, NUM_FACTORS, factor, (
-            jnp.full((lane_tile,), jnp.inf, jnp.float32),
-            jnp.zeros((lane_tile,), jnp.int32),
+            jnp.full((LANE_TILE,), jnp.inf, jnp.float32),
+            jnp.zeros((LANE_TILE,), jnp.int32),
         ))
 
         # re-run the winning candidate per lane
@@ -160,14 +160,13 @@ def _encode_kernel(pcm_ref, state_ref, prof_ref, coded_ref, recon_ref,
     store(end_ref.at[1, lanes], p1)
 
 
-@partial(jax.jit, static_argnames=("bits", "interpret", "lane_tile"))
+@partial(jax.jit, static_argnames=("bits", "interpret"))
 def encode_search_triton(
     pcm: jnp.ndarray,
     state: jnp.ndarray,
     *,
     bits: int,
     interpret: bool = False,
-    lane_tile: int = LANE_TILE,
 ):
     """Exhaustive-search encode of int-like ``[B, 32, L]`` target PCM.
 
@@ -179,14 +178,14 @@ def encode_search_triton(
     assert ns == BLOCK_SAMPLES
     samp = jax.ShapeDtypeStruct((B, BLOCK_SAMPLES, L), jnp.int16)
     profs, coded, recon, end = pl.pallas_call(
-        partial(_encode_kernel, bits=bits, lane_tile=lane_tile),
+        partial(_encode_kernel, bits=bits),
         out_shape=[
             jax.ShapeDtypeStruct((B, L), jnp.int32),
             samp,
             samp,
             jax.ShapeDtypeStruct((2, L), jnp.int32),
         ],
-        grid=(pl.cdiv(L, lane_tile),),
+        grid=(pl.cdiv(L, LANE_TILE),),
         backend="triton",
         compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
         interpret=interpret,

@@ -10,8 +10,9 @@ cooperating processes:
   ``BJXA_COORDINATOR``/``BJXA_NUM_PROCESSES``/``BJXA_PROCESS_ID`` env vars
   (each optional).  On CPU backends it selects gloo collectives so
   multi-process runs work on plain hosts — this is how the multi-process
-  tests spawn a real 2-process job with a local coordinator; on GPU hosts
-  it gives every process cards of its own (:func:`gpu_local_device_ids`).
+  tests spawn a real 2-process job with a local coordinator; processes
+  that share a GPU host under a ``localhost`` coordinator get cards of
+  their own (:func:`gpu_local_device_ids`).
 * :func:`process_info` — the (index, count) every sharding decision keys
   on, derived from the live JAX runtime (never passed by hand once
   initialized).
@@ -116,28 +117,32 @@ def gpu_local_device_ids(
     process_id: int | None,
     n_gpus: int,
 ) -> list[int] | None:
-    """The cards process ``process_id`` owns on its host.
+    """The cards process ``process_id`` owns on its host, or None for
+    JAX's default (every visible card).
 
     A JAX process reserves most of every card it opens, so processes that
-    share a host must not share cards.  With a ``localhost`` coordinator
-    all processes are on this host and split its cards evenly (more
-    processes than cards is an error); on a multi-host job each host runs
-    one process per card, so process ``i`` owns card ``i % n_gpus``.
+    share a host must not share cards.  Only a ``localhost`` coordinator
+    says where the processes run: all on this host, where they split its
+    cards evenly (more processes than cards is an error).  Any other
+    coordinator leaves the per-host layout unknown — the usual multi-host
+    job runs one process per host owning all of its cards — so no cards
+    are named; processes sharing a host there need a ``localhost``
+    coordinator or their own ``CUDA_VISIBLE_DEVICES``.
     """
     if num_processes is None or process_id is None:
         return None
+    host = (coordinator or "").rsplit(":", 1)[0]
+    if host not in ("localhost", "127.0.0.1", "[::1]", ""):
+        return None
     if n_gpus < 1:
         raise ValueError("no GPU visible to this process")
-    host = (coordinator or "").rsplit(":", 1)[0]
-    if host in ("localhost", "127.0.0.1", "[::1]", ""):
-        if num_processes > n_gpus:
-            raise ValueError(
-                f"{num_processes} processes on one host with {n_gpus} "
-                "GPUs: each process needs a card of its own"
-            )
-        per = n_gpus // num_processes
-        return list(range(process_id * per, (process_id + 1) * per))
-    return [process_id % n_gpus]
+    if num_processes > n_gpus:
+        raise ValueError(
+            f"{num_processes} processes on one host with {n_gpus} "
+            "GPUs: each process needs a card of its own"
+        )
+    per = n_gpus // num_processes
+    return list(range(process_id * per, (process_id + 1) * per))
 
 
 def _enable_rank_cache_writes() -> None:

@@ -14,7 +14,9 @@ byte, with the repo's native C++ codec (``bjxa_tpu/native``).  Phases:
    ``--segment-blocks 65536``.
 2. ``corpus`` — ``bjxa corpus`` over 64 mixed files (4/6/8-bit, mono and
    stereo, 2 s to 4 min; two with a corrupt profile, one truncated), then
-   a second run that must skip every converted file via the manifest.
+   a second run that must skip every converted file via the manifest,
+   then a third into an empty directory (the first run's work, compiled
+   programs already loaded).
 3. ``encode`` — ``bjxa encode --bits 4|6|8`` (profile search) and
    ``--truncate`` of a 60 s stereo WAV with saturating passages, plus the
    sequential-vs-fixpoint timing behind the encode fixpoint default.
@@ -290,13 +292,25 @@ def phase_corpus(tmp, seed, n_files=CORPUS_FILES, seconds=CORPUS_SECONDS,
     rc2, out2, err2, dt2 = timed_bjxa("corpus", *dev, str(src), str(dst))
     check(out2.startswith(f"converted 0 skipped {good} failed {len(bad)}"),
           f"corpus rerun: {out2.strip()}")
+    # every file again into an empty directory: the same decode work as
+    # the first run, with this process's compiled programs already loaded
+    warm = tmp / f"corpus-warm-{devices or 1}"
+    rc3, out3, err3, dt3 = timed_bjxa("corpus", *dev, str(src), str(warm))
+    check(rc3 == 1 and out3.startswith(
+        f"converted {good} skipped 0 failed {len(bad)}"),
+          f"corpus warm run: {out3.strip()}")
+    warm_bytes = sum(
+        mismatches(p.read_bytes(), (warm / p.name).read_bytes())
+        for p in dst.glob("*.wav")
+    )
+    check(warm_bytes == 0, f"corpus warm run: {warm_bytes} bytes differ")
     samples = sum(
         int(np.frombuffer(p.read_bytes()[40:44], "<u4")[0]) // 2
         for p in dst.glob("*.wav")
     )
     return {"files": n_files, "good": good, "failed": len(bad),
             "mismatches": bad_bytes, "first_s": dt, "rerun_s": dt2,
-            "msamples": samples / 1e6}
+            "warm_s": dt3, "msamples": samples / 1e6}
 
 
 def make_wav(tmp: pathlib.Path, seed: int, seconds: int):
@@ -406,9 +420,11 @@ def _best_time(fn, *args, reps: int):
     return best
 
 
-def _compare_and_rate(fields, tag, n_msamples, kern, plain, *args):
+def _compare_and_rate(fields, tag, n_msamples, kern, plain, *args,
+                      reps: int = 5):
     """Run the kernel and the XLA version once (compiling; both times
-    reported), check equality, then Msamples/s of each (best of reps)."""
+    reported), check equality, then Msamples/s of each (best of ``reps``
+    timed calls, the same count for both)."""
     import jax
 
     outs = []
@@ -418,7 +434,7 @@ def _compare_and_rate(fields, tag, n_msamples, kern, plain, *args):
         fields[f"{tag}_{name}_first_s"] = time.perf_counter() - t0
     _same([np.asarray(x).astype(np.int32) for x in outs[0]],
           [np.asarray(x).astype(np.int32) for x in outs[1]], tag)
-    for name, fn, reps in (("kernel", kern, 5), ("xla", plain, 2)):
+    for name, fn in (("kernel", kern), ("xla", plain)):
         fields[f"{tag}_{name}_msps"] = n_msamples / _best_time(
             fn, *args, reps=reps)
     return outs
@@ -431,8 +447,7 @@ def _same(a, b, what: str) -> None:
 
 
 def phase_kernels(seed, decode_shapes=((32768, 64), (32, 20672)),
-                  encode_shape=(4096, 32), native_lanes=256,
-                  interpret=False, fields=None):
+                  encode_shape=(4096, 32), native_lanes=256, fields=None):
     """Each Pallas kernel against what XLA makes of the plain version;
     ``fields`` collects the results as they come (kept on failure)."""
     import jax
@@ -457,13 +472,13 @@ def phase_kernels(seed, decode_shapes=((32768, 64), (32, 20672)),
                 | random.randint(ks, (nblocks, lanes), 0, 13)
                 ).astype(jnp.uint8)
         state = random.randint(kst, (lanes, 2), -3000, 3000, jnp.int32)
-        kern = partial(decode_words, bits=bits, interpret=interpret)
+        kern = partial(decode_words, bits=bits)
         plain = jax.jit(partial(decode_words_xla, bits=bits))
         outs = _compare_and_rate(
             fields, f"decode8_{lanes}x{nblocks}", lanes * nblocks * 32 / 1e6,
             kern, plain, prof, words, state)
         _none, end = decode_words(prof, words, state, bits=bits,
-                                  with_output=False, interpret=interpret)
+                                  with_output=False)
         _same([end], [outs[1][1]], "decode states-only")
 
     lanes, nblocks = encode_shape
@@ -471,7 +486,7 @@ def phase_kernels(seed, decode_shapes=((32768, 64), (32, 20672)),
     pcm = random.randint(random.fold_in(key, 7), (nblocks, 32, lanes),
                          -(2**15), 2**15, jnp.int32)
     state = jnp.zeros((lanes, 2), jnp.int32)
-    kern = partial(encode_search_triton, bits=bits, interpret=interpret)
+    kern = partial(encode_search_triton, bits=bits)
     plain = partial(encode_search_scan, bits=bits)
     _compare_and_rate(fields, f"encode6_{lanes}x{nblocks}",
                       lanes * nblocks * 32 / 1e6, kern, plain, pcm, state)
@@ -493,8 +508,7 @@ def phase_kernels(seed, decode_shapes=((32768, 64), (32, 20672)),
         xl = jnp.asarray(x)
         for name, fn in (("kernel", encode_search_triton),
                          ("xla", encode_search_scan)):
-            kw = {"interpret": interpret} if name == "kernel" else {}
-            got = np.asarray(fn(xl, st0, bits=bits, **kw)[0])
+            got = np.asarray(fn(xl, st0, bits=bits)[0])
             bad = int(np.count_nonzero(got != want))
             check(bad == 0, f"encode{bits} {name}: {bad} profiles differ "
                   "from native")

@@ -296,7 +296,9 @@ def test_allreduce_identity_single_process():
     [
         ("localhost:1234", 4, 2, 4, [2]),  # one card each
         ("127.0.0.1:1234", 2, 1, 4, [2, 3]),  # cards split evenly
-        ("node7:1234", 16, 9, 8, [1]),  # multi-host: one per card
+        ("node7:1234", 16, 9, 8, None),  # multi-host: layout unknown
+        ("10.0.0.7:1234", 4, 3, 8, None),  # one process per host
+        ("node7:1234", 2, 0, 0, None),  # remote host's cards not counted
         (None, None, None, 4, None),  # single process: JAX decides
     ],
 )
@@ -331,3 +333,23 @@ def test_initialize_passes_local_devices_on_gpu(monkeypatch):
     assert distributed.initialize("localhost:9", 2, 1) is True
     assert seen["local_device_ids"] == [2, 3]
     assert distributed.visible_gpus() == 4
+
+
+def test_initialize_names_no_cards_for_a_remote_coordinator(monkeypatch):
+    """A one-process-per-host job (coordinator on another host) keeps
+    JAX's default: the process opens every card it can see."""
+    import types
+
+    import jax
+
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: seen.update(kw))
+    monkeypatch.setattr(distributed, "_enable_rank_cache_writes",
+                        lambda: None)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0,1,2,3,4,5,6,7")
+    monkeypatch.setattr(jax, "config", types.SimpleNamespace(
+        jax_platforms="cuda", update=None))
+    assert distributed.initialize("node0.cluster:8476", 4, 3) is True
+    assert seen["local_device_ids"] is None
+    assert seen["process_id"] == 3 and seen["num_processes"] == 4

@@ -11,7 +11,11 @@ import pytest
 import jax.numpy as jnp
 
 from bjxa_tpu.ops.encode import encode_search_scan
-from bjxa_tpu.ops.pallas_encode import encode_search_triton, square_f32
+from bjxa_tpu.ops.pallas_encode import (
+    LANE_TILE,
+    encode_search_triton,
+    square_f32,
+)
 
 
 def _signal(rng, B, L):
@@ -45,17 +49,16 @@ def test_pallas_encode_matches_scan(bits):
 
 
 def test_specialized_kernel_matches_on_device():
-    """Lane tiles of 16 and 8 (the default) pick identical profiles
-    over full-scale noise, the regime deepest past the f32 mantissa."""
+    """Full-scale noise over six whole lane tiles picks the scan encoder's
+    profiles: the regime deepest past the f32 mantissa."""
     rng = np.random.default_rng(11)
-    B, L = 2, 48
+    B, L = 2, 6 * LANE_TILE
     pcm = rng.integers(-32768, 32768, size=(B, 32, L)).astype(np.int32)
     state = rng.integers(-3000, 3000, size=(L, 2)).astype(np.int32)
-    a = encode_search_triton(jnp.asarray(pcm), jnp.asarray(state), bits=6,
-                             interpret=True)
-    b = encode_search_triton(jnp.asarray(pcm), jnp.asarray(state), bits=6,
-                             interpret=True, lane_tile=16)
-    _assert_same(a, b)
+    got = encode_search_triton(jnp.asarray(pcm), jnp.asarray(state), bits=6,
+                               interpret=True)
+    ref = encode_search_scan(jnp.asarray(pcm), jnp.asarray(state), bits=6)
+    _assert_same(got, ref)
 
 
 def test_wrapper_padded_blocks_end_state_on_device():

@@ -9,7 +9,10 @@ counts, and the states-only mode.  Reference semantics:
 ``src/libbjxa.c:286-345`` (inflate) + ``:533-578`` (filter).
 """
 
+from functools import partial
+
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
@@ -124,13 +127,43 @@ def test_fused_words_states_only_device(bits):
     np.testing.assert_array_equal(np.asarray(end), ref_end)
 
 
-def test_fused_words_explicit_lane_tiles_agree():
-    """Every lane tile the picker can choose computes the same result."""
-    blocks_t, state = _mk_lanes(6, B=4, L=150, seed=6)
-    outs = [_kernel(blocks_t, 6, state, lane_tile=lt) for lt in (32, 64, 128)]
-    for pcm, end in outs[1:]:
-        np.testing.assert_array_equal(np.asarray(pcm), np.asarray(outs[0][0]))
-        np.testing.assert_array_equal(np.asarray(end), np.asarray(outs[0][1]))
+def _pallas_grid(fn, *args):
+    """The grid of the one ``pallas_call`` in ``fn``'s jaxpr."""
+    def find(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "pallas_call":
+                return eqn.params["grid_mapping"].grid
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                found = find(sub)
+                if found is not None:
+                    return found
+        return None
+
+    return find(jax.make_jaxpr(fn)(*args).jaxpr)
+
+
+def test_fused_words_explicit_lane_tiles_agree(monkeypatch):
+    """Every lane tile the picker can choose (32, 64 and 128 lanes, reached
+    with MIN_PROGRAMS lowered to 2) launches that tile's grid and matches
+    numpy_ref, ragged tail included."""
+    from bjxa_tpu.ops import pallas_decode
+
+    monkeypatch.setattr(pallas_decode, "MIN_PROGRAMS", 2)
+    decode_words.clear_cache()  # no trace made under the real constant
+    try:
+        for L, lt in ((50, 32), (100, 64), (200, 128)):
+            assert pallas_decode.pick_lane_tile(L) == lt
+            blocks_t, state = _mk_lanes(6, B=4, L=L, seed=6)
+            prof, words = words_from_blocks_host(blocks_t, 6)
+            args = (jnp.asarray(prof), jnp.asarray(words), jnp.asarray(state))
+            fn = partial(decode_words, bits=6, interpret=True)
+            assert _pallas_grid(fn, *args) == (-(-L // lt),)
+            pcm, end = fn(*args)
+            ref_pcm, ref_end = _numpy_lanes(blocks_t, 6, state)
+            np.testing.assert_array_equal(np.asarray(pcm), ref_pcm)
+            np.testing.assert_array_equal(np.asarray(end), ref_end)
+    finally:
+        decode_words.clear_cache()
 
 
 def test_pick_tiles_bounds_padded_memory():
